@@ -39,9 +39,11 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
 
-    from gaussiansplattingmlx_tpu.utils.platform import apply_platform_env
+    from gaussiansplattingmlx_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
 
-    apply_platform_env()
+    enable_compile_cache()
 
     import jax
     import jax.numpy as jnp
@@ -97,10 +99,6 @@ def main(argv=None):
             raster_cfg=cfg,
             white_background=args.white_background,
             backend=args.backend,
-            # Forward-only metrics pass: the inference fast path (sorted-order
-            # staging, no aligned relayout) renders identical contributor sets
-            # with a fraction of the staging cost — render_cli uses the same.
-            inference=True,
         )
         return out.color
 

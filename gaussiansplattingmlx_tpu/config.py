@@ -24,10 +24,10 @@ class RasterizerConfig:
     """
 
     # Pixel tile size.  The reference trains with a 4x4 grid of giant tiles
-    # (ColmapDataLoader.swift:494-499) and renders with 64x64.  16x16 keeps
-    # the per-chunk working set at (256, chunk) — Mosaic compiles it ~6x
-    # faster than 32x32 and the finer grid culls better; see
-    # scripts/kernel_tune.py.
+    # (ColmapDataLoader.swift:494-499) and renders with 64x64.  16x16 is the
+    # original 3DGS CUDA rasterizer's block: one kernel program per tile
+    # holds a (256, chunk_size) working set in registers.  The kernel needs
+    # tile_h * tile_w and chunk_size to be powers of two.
     tile_h: int = 16
     tile_w: int = 16
     # Global (gaussian, tile) pair budget for the depth sort — the ONE
@@ -43,19 +43,16 @@ class RasterizerConfig:
     auto_grow: bool = True
     max_pairs_limit: int = 2 ** 23
     # Undo auto-grow overshoot: campaigns that doubled through a densify peak
-    # keep paying peak-sized staging forever (every stage pays for the full
+    # keep paying peak-sized binning forever (every stage pays for the full
     # static budget).  Rendering is budget-independent while overflow is zero
     # (exact binning; stable sort keeps real rows in order), so the Trainer
     # shrinks back toward the observed peak at a log boundary — never below
     # the configured max_pairs, with a 2.2x hysteresis margin against
     # re-growth thrash.
     auto_shrink: bool = True
-    # Gaussian records processed per inner chunk of the Pallas kernel.
-    chunk_size: int = 128
-    # Per-Gaussian gradient reduction: "segsum" (sort + MXU segment-sum
-    # Pallas kernel; ~3x faster than XLA's serialized scatter on TPU) or
-    # "scatter" (XLA scatter-add fallback).
-    grad_reduce: str = "segsum"
+    # Gaussian records each tile program composites per step of its march
+    # (ops/tile_raster.py).
+    chunk_size: int = 32
     # Compositing constants (tile_global_kernels.slang:453-455,599).
     alpha_clamp: float = 0.99
     transmittance_eps: float = 1e-4
@@ -67,20 +64,11 @@ class RasterizerConfig:
     tanfov_clip: float = 1.3
     radius_eigen_eps: float = 1e-5
     quat_norm_eps: float = 1e-8
-    # Backend: "pallas" (TPU), "reference" (pure-JAX oracle).  "auto" picks
-    # pallas on TPU and the oracle elsewhere.
+    # Rasterizer (render.resolve_backend): "auto" is the compiled tile
+    # kernel on a GPU and an error elsewhere; "reference" (the pure-JAX
+    # oracle) and "triton_interpret" (the kernel in Pallas interpret mode)
+    # run anywhere, but only when named.
     backend: str = "auto"
-    # Pair staging for the pallas backend: "fused" runs binning + sort +
-    # chunk-aligned relayout as one wide-payload pipeline (ops/staging.py,
-    # 3 indexed passes), "split" keeps the original binning + relayout
-    # (4 indexed passes; also the parity oracle for the fused path).
-    staging: str = "fused"
-    # Training-path record layout under "fused" staging: "sorted" feeds the
-    # kernels raw sorted-order records (no chunk-aligned relayout, no per-tile
-    # alignment padding; backward = boundary-carry kernel) — bit-identical
-    # gradients to "aligned", which keeps the round-3/4 relayout pipeline.
-    # Env override: GSPLAT_TRAIN_STAGING.  Inference always runs sorted.
-    train_staging: str = "sorted"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,7 +194,7 @@ class ParallelConfig:
     """Distribution layer — new design, no reference counterpart (SURVEY §2.4).
 
     Data parallelism shards the camera batch across `data` mesh devices with
-    Gaussian parameters replicated and gradients psum'd over ICI.  `tile`
+    Gaussian parameters replicated and gradients all-reduced.  `tile`
     sharding splits the pixel-tile grid of a single camera for very large
     renders."""
 

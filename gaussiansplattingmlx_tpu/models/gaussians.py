@@ -1,6 +1,6 @@
 """Gaussian parameter store as a JAX pytree with static capacity.
 
-Counterpart of Trainer/GaussianModel.swift:33-126, redesigned TPU-first:
+Counterpart of Trainer/GaussianModel.swift:33-126, redesigned for XLA:
 instead of reallocating arrays as the point count changes (which would force
 an XLA recompile every densify), parameters live in fixed-capacity buffers
 with an explicit `num_active` count; inactive slots carry opacity logit -inf
@@ -83,7 +83,7 @@ def knn_mean_sq_dist(points: np.ndarray, k: int = 3, chunk: int = 2048) -> np.nd
     Correct chunked implementation — the reference's distTopK has a stride bug
     (GaussianModel.swift:15-18) that only fills the first 256 entries; SURVEY
     §"quirks" directs us NOT to replicate it.  Runs on the default JAX device
-    (TPU when available): distances via the gemm expansion
+    (the GPU when available): distances via the gemm expansion
     |a-b|^2 = |a|^2 + |b|^2 - 2 a.b, selection via lax.top_k per block.
     """
     points = np.asarray(points, dtype=np.float32)
@@ -110,8 +110,8 @@ def knn_mean_sq_dist(points: np.ndarray, k: int = 3, chunk: int = 2048) -> np.nd
         d2 = jnp.where(col == row, jnp.inf, d2)  # exclude self
         d2 = jnp.where(col >= n, jnp.inf, d2)  # exclude padding
         d2 = jnp.maximum(d2, 0.0)
-        # k smallest via k unrolled min+mask passes (k is tiny; lax.top_k
-        # over 10^5 lanes is far slower on TPU).
+        # k smallest via k unrolled min+mask passes (k is tiny, and these
+        # are plain fused reductions).
         total = jnp.zeros((chunk,), jnp.float32)
         for _ in range(kk):
             m = jnp.min(d2, axis=1)

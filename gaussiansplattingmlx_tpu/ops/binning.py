@@ -4,7 +4,7 @@ Replaces the reference's five-kernel dynamic pipeline
 (count_tiles_per_gaussian / generate_keys / radix_sort / compute_tile_ranges /
 build_packed_tile_indices, slang/gaussian_tile_global_kernels.slang:8-404)
 whose two `.item()` host syncs (GaussianRenderer.swift:398-409,462) are
-impossible under `jax.jit`.  The TPU design:
+impossible under `jax.jit`.  The static-shape design:
 
   1. Per-Gaussian tile footprint from the screen rect — identical tile index
      math to count_tiles_per_gaussian (floor(min/tile) .. floor(max/tile)+1,
@@ -20,11 +20,8 @@ impossible under `jax.jit`.  The TPU design:
      allocation, no scatter).
   3. One stable lexicographic `lax.sort` on (tile_id, depth) with the
      gaussian index as payload — sorting replaces the reference's
-     hand-written single-threadgroup radix sort.  XLA's TPU sort runs at
-     ~10 Gelem/s while TPU scatters serialize, so the pipeline is
-     deliberately sort/gather-only (no scatter compaction).  Sorting the
-     [max_pairs] axis is also cheaper than the previous dense [N, R]
-     candidate expansion whenever N*R > max_pairs.
+     hand-written single-threadgroup radix sort.  The pipeline is
+     sort/gather-only (no scatter compaction).
   4. Per-tile (start, count) ranges via searchsorted — the analogue of
      compute_tile_ranges.
 
@@ -37,34 +34,19 @@ stopGradient tile-slice builder (GaussianRenderer.swift:333-490).
 
 from __future__ import annotations
 
-import os
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 
-from . import merge_pallas
-
 # Cumulative pair counts saturate at this value.  The clamp must be applied
 # INSIDE the scan (a clamped-add associative_scan), not after a plain cumsum:
 # at flagship pathology (1M gaussians x full-screen footprints) the true pair
 # total exceeds 2^31 and a plain int32 cumsum wraps negative before any
-# post-hoc clamp, breaking the monotonicity searchsorted/merge_ranks need.
+# post-hoc clamp, breaking the monotonicity searchsorted needs.
 # 2^30 - 1 keeps every partial sum a+b <= 2^31 - 2 inside int32; max_pairs is
 # always far below the clamp, so ranks for real pair slots are exact.
 _CUM_CLAMP = 2**30 - 1
-
-
-def use_merge_pallas(max_pairs: int) -> bool:
-    """Gate for the Pallas merge kernels (shared with ops/staging.py):
-    GSPLAT_MERGE=sort forces the portable fallback, =pallas forces the
-    kernel; auto uses it on TPU when the budget divides the block."""
-    mode = os.environ.get("GSPLAT_MERGE", "auto")
-    return (
-        mode != "sort"
-        and max_pairs % merge_pallas.BLOCK == 0
-        and (mode == "pallas" or jax.default_backend() == "tpu")
-    )
 
 
 def _saturating_cumsum(footprint: jax.Array) -> jax.Array:
@@ -106,9 +88,9 @@ def _tile_bounds(rect_min, rect_max, tile_w, tile_h, grid_w, grid_h):
 
 
 class PairExpansion(NamedTuple):
-    """Shared pair-expansion state (used by bin_gaussians and ops/staging)."""
+    """Pair-expansion state consumed by bin_gaussians."""
 
-    rank: jax.Array | None  # [max_pairs] compacted rank per pair slot
+    rank: jax.Array  # [max_pairs] compacted rank per pair slot
     cum_keep: jax.Array  # [n] compacted inclusive cumsum (pad: clamp+1)
     keep_idx: jax.Array  # [n] compaction permutation (actives first)
     tmin_x: jax.Array  # [n]
@@ -130,13 +112,10 @@ def expand_pairs(
     tile_w: int,
     tile_h: int,
     max_pairs: int,
-    need_rank: bool = True,
 ) -> PairExpansion:
     """Exact (gaussian, tile) pair expansion onto the static pair axis:
     footprints, saturating cumsum, compaction and the pair->gaussian merge.
-    Integer/stop-grad only.  `need_rank=False` skips the [max_pairs]-scale
-    merge (rank=None) for callers that fuse it into a downstream kernel
-    (ops/staging.py uses merge_pallas.merge_gather on `cum_keep` directly)."""
+    Integer/stop-grad only."""
     n = rect_min.shape[0]
     grid_w = -(-image_width // tile_w)
     grid_h = -(-image_height // tile_h)
@@ -169,13 +148,9 @@ def expand_pairs(
     )
 
     # Pair slot -> owning gaussian: first index whose inclusive cumsum
-    # exceeds the slot.  Two paths:
-    #   * TPU: compact the positive-footprint gaussians (one cheap [n] sort)
-    #     so the cumsum is STRICTLY increasing, then the Pallas blocked-merge
-    #     kernel (ops/merge_pallas.py) — linear work, ~2 ms at 2M pairs.
-    #   * fallback (CPU / tiny budgets): searchsorted method="sort" (one
-    #     merge-sort, 36 ms at 2M on TPU; the default scan-based binary
-    #     search lowers to serial gather rounds, ~10x slower again).
+    # exceeds the slot.  The positive-footprint gaussians are compacted first
+    # (one [n] sort) so the cumsum is strictly increasing, then one
+    # searchsorted over the compacted cumsum.
     slot_iota = jnp.arange(n, dtype=jnp.int32)
     active_key = jnp.where(footprint > 0, 0, 1).astype(jnp.int32)
     sort_key, keep_idx = jax.lax.sort(
@@ -183,17 +158,9 @@ def expand_pairs(
     )
     cum_keep = jnp.where(sort_key == 0, cum[keep_idx], _CUM_CLAMP + 1)
 
-    if need_rank:
-        p = jnp.arange(max_pairs, dtype=jnp.int32)
-        if use_merge_pallas(max_pairs):
-            rank = merge_pallas.merge_ranks(cum_keep, max_pairs)
-        else:
-            rank = jnp.searchsorted(
-                cum_keep, p, side="right", method="sort"
-            ).astype(jnp.int32)
-        rank = jnp.minimum(rank, n - 1)
-    else:
-        rank = None
+    p = jnp.arange(max_pairs, dtype=jnp.int32)
+    rank = jnp.searchsorted(cum_keep, p, side="right", method="sort")
+    rank = jnp.minimum(rank.astype(jnp.int32), n - 1)
     return PairExpansion(
         rank=rank, cum_keep=cum_keep, keep_idx=keep_idx,
         tmin_x=tmin_x, tmin_y=tmin_y, rw=jnp.maximum(rw, 1),
@@ -208,8 +175,7 @@ def enumerate_tiles(g_block_start, g_rw, g_tmin_x, g_tmin_y, grid_w):
     """Per-pair tile coordinates from the gathered per-gaussian columns:
     the pair's offset inside its block enumerates the rect row-major.
 
-    Integer div/mod has no VPU hardware path (expands to a long op sequence
-    over the [max_pairs] axis); exact float division instead: local = q*rw + r
+    Exact float division stands in for integer div/mod: local = q*rw + r
     with 0 <= r < rw  =>  (local+0.5)/rw lies strictly inside (q, q+1), so the
     floor is exactly q for any rw <= 2^22."""
     p = jnp.arange(g_block_start.shape[0], dtype=jnp.int32)
@@ -247,12 +213,9 @@ def bin_gaussians(
     num_pairs = e.num_pairs
     p = jnp.arange(max_pairs, dtype=jnp.int32)
     valid = p < num_pairs
-    # One 8-wide row gather for every per-pair per-gaussian quantity: TPU
-    # gathers cost ~6.5 ns per INDEX almost independently of row width, so
-    # six separate [max_pairs] per-component gathers run ~6x slower than one
-    # stacked-table row gather (measured 102 ms vs 13 ms at 2M pairs / 100k
-    # gaussians).  The table is pre-gathered into compacted order ([n] rows,
-    # cheap) with the ORIGINAL gaussian id in column 5.
+    # One 8-wide row gather for every per-pair per-gaussian quantity.  The
+    # table is pre-gathered into compacted order ([n] rows, cheap) with the
+    # ORIGINAL gaussian id in column 5.
     table = jnp.stack(
         [
             e.tmin_x[keep_idx],

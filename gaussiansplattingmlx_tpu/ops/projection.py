@@ -1,10 +1,10 @@
 """Fused Gaussian projection: world -> view -> NDC -> screen, EWA cov2d, SH color.
 
-TPU-native counterpart of the reference's fused projection kernel
+Counterpart of the reference's fused projection kernel
 (slang/gaussian_projection_kernels.slang:36-173 and
 slang/gaussian_projection_screen_shared.slang:53-383).  Written as plain
 vectorized JAX: it is a chain of tiny per-Gaussian contractions and
-elementwise math that XLA fuses into a handful of VPU loops — a hand-written
+elementwise math that XLA fuses into a handful of loops — a hand-written
 Pallas kernel buys nothing here.  Differentiable end-to-end with `jax.grad`;
 `radii`/rects are consumed under stop_gradient by the binning stage, matching
 the reference (GaussianRenderer.swift:629-630,863-865).
@@ -88,8 +88,8 @@ def project_gaussians(
 
     # --- NDC projection (row-vector convention) -----------------------------
     p_hom = transforms.homogeneous(means3d)  # [N, 4]
-    # Full-f32 matmuls: default TPU precision runs bf16 passes, which costs
-    # ~3 decimal digits on world/clip positions.
+    # Full-f32 matmuls: default precision may run reduced-precision passes
+    # (TF32 on a GPU), which costs ~3 decimal digits on world/clip positions.
     hp = jax.lax.Precision.HIGHEST
     p_view = jnp.matmul(p_hom, view, precision=hp)  # [N, 4]
     p_clip = jnp.matmul(p_view, proj, precision=hp)  # [N, 4]

@@ -2,12 +2,14 @@
 
 Reference semantics: per-pixel front-to-back alpha compositing over the
 pixel's tile list in depth order (slang/gaussian_tile_global_kernels.slang:
-406-614).  This oracle is the ground truth for the Pallas kernel: identical
-math, identical early-exit rule, differentiable with plain `jax.grad` (it is
-the "TinyTests synthetic scene" harness SURVEY §4 calls for, which the
-reference never had).
+406-614).  This oracle is the ground truth for the tile kernel
+(ops/tile_raster.py): identical math, identical early-exit rule,
+differentiable with plain `jax.grad` (it is the "TinyTests synthetic scene"
+harness SURVEY §4 calls for, which the reference never had).  Its one
+product asks for full float32, so it stays exact where a GPU would run
+default-precision f32 products in TF32.
 
-Key identity used here and in the Pallas kernel: the serial march
+Key identity used here and in the tile kernel: the serial march
 
     contrib_i = T_i * alpha_i ;  T_{i+1} = T_i * (1 - alpha_i) ;
     break when T_{i+1} < 1e-4
@@ -121,7 +123,7 @@ def rasterize_reference(
         tu = jnp.concatenate([jnp.ones((1,), a.dtype), jnp.cumprod(one_minus)[:-1]])
         m = (tu >= transmittance_eps) & in_tile
         w = tu * a * jnp.where(m, 1.0, 0.0)
-        color = w @ col
+        color = jnp.matmul(w, col, precision=jax.lax.Precision.HIGHEST)
         depth = jnp.sum(w * dep)
         t_final = jnp.prod(1.0 - a * jnp.where(m, 1.0, 0.0))
         n_contrib = jnp.sum(m.astype(jnp.int32))
@@ -134,7 +136,11 @@ def rasterize_reference(
     n_chunks = -(-image_height // row_chunk)
     pad_rows = n_chunks * row_chunk - image_height
     ys_p = jnp.pad(ys, (0, pad_rows)).reshape(n_chunks, row_chunk)
-    color, depth, alpha, n_contrib = jax.lax.map(lambda yy: row_fn(yy, xs), ys_p)
+    # Rematerialised per row chunk: the backward keeps one chunk's
+    # [row_chunk, W, max_pairs] intermediates alive at a time, not all rows'.
+    color, depth, alpha, n_contrib = jax.lax.map(
+        jax.checkpoint(lambda yy: row_fn(yy, xs)), ys_p
+    )
     reshape = lambda v: v.reshape((n_chunks * row_chunk,) + v.shape[2:])[:image_height]
     return RenderOutputs(
         color=reshape(color),

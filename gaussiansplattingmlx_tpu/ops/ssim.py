@@ -2,10 +2,9 @@
 
 Same formulation as both reference paths: the fused Slang kernel
 (slang/ssim_kernels.slang:22-155, C1=1e-4, C2=9e-4, zero-padded boundary) and
-the MLX conv fallback (Trainer/SsimUtils.swift:17-50).  On TPU a depthwise
-conv of an 11x11 window is fused by XLA into a few VPU passes; its gradient is
-conv-transpose which XLA also handles — a hand-written kernel is not needed
-for speed-of-light here, so this stays plain JAX and fully differentiable.
+the MLX conv fallback (Trainer/SsimUtils.swift:17-50).  XLA lowers the
+depthwise 11x11 conv and its conv-transpose gradient itself, so this stays
+plain JAX and fully differentiable.
 """
 
 from __future__ import annotations
@@ -36,9 +35,9 @@ def _depthwise_conv(img, window_size: int, sigma: float):
     kw = jnp.asarray(g).reshape(1, window_size, 1, 1)
     kw = jnp.broadcast_to(kw, (1, window_size, 1, c))
     dn = jax.lax.conv_dimension_numbers(x.shape, kh.shape, ("NHWC", "HWIO", "NHWC"))
-    # Full-f32 convs: TPU's default bf16 conv passes make the variance
-    # estimates noisy relative to C2=9e-4, which can push SSIM well above 1
-    # (observed ~1.15 -> negative training loss).
+    # Full-f32 convs: reduced-precision conv passes (bf16, TF32) make the
+    # variance estimates noisy relative to C2=9e-4, which can push SSIM well
+    # above 1 (observed ~1.15 -> negative training loss).
     x = jax.lax.conv_general_dilated(
         x, kh, (1, 1), [(pad, pad), (0, 0)], dimension_numbers=dn,
         feature_group_count=c, precision=jax.lax.Precision.HIGHEST,

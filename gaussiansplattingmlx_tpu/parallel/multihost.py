@@ -1,14 +1,14 @@
-"""Multi-host (multi-process) distribution over DCN.
+"""Multi-host (multi-process) distribution.
 
 The reference is a single-device macOS app (SURVEY §2.4 — no distribution of
-any kind), so this layer is new TPU-first design.  It follows the standard
-JAX single-controller-per-process model:
+any kind), so this layer is new design.  It follows the standard JAX
+single-controller-per-process model:
 
   * every process calls :func:`initialize` (``jax.distributed.initialize``)
     and then sees the GLOBAL device set; the (data, tile) mesh from
     ``sharding.make_mesh`` spans all hosts, with the "data" axis laid out so
-    consecutive data-shards stay on one host's local chips (gradient
-    all-reduce rides ICI within a host and crosses DCN only once per ring).
+    consecutive data-shards stay on one host's local devices (the gradient
+    all-reduce crosses between hosts only once per ring).
   * each process loads ONLY its own slice of the camera views
     (:func:`local_view_range`) — images for other hosts' cameras never touch
     this host's RAM or NICs.
@@ -17,14 +17,14 @@ JAX single-controller-per-process model:
     assembles the global [data_parallel, ...] arrays from the process-local
     pieces (``jax.make_array_from_process_local_data``).  The batched DP
     train step (``sharding.make_dp_train_step(batched_views=True)``)
-    consumes them; camera pixels never cross DCN — only the replicated
+    consumes them; camera pixels never cross hosts — only the replicated
     parameter gradients do, inside the step's ``pmean``.
 
 Single-process use degenerates cleanly: ``initialize()`` is a no-op without a
 coordinator, ``local_view_range`` returns the full range, and
 ``make_global_view_batch`` is an ordinary device_put with a "data" sharding —
 so every code path here is exercised by the virtual-device tests and the
-driver dry-run, and scales unchanged to a real pod
+driver dry-run, and scales unchanged to a real cluster
 (``scripts/launch_multihost.py`` runs the genuinely multi-process form).
 """
 
@@ -48,9 +48,8 @@ def initialize(
 
     Arguments fall back to the standard env vars (``JAX_COORDINATOR_ADDRESS``,
     ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``) used by
-    ``scripts/launch_multihost.py``; on Cloud TPU pods with no explicit args,
-    ``jax.distributed.initialize()`` auto-discovers from the TPU metadata.
-    A plain single-process run (no coordinator anywhere) is a no-op.
+    ``scripts/launch_multihost.py``.  A plain single-process run (no
+    coordinator anywhere) is a no-op.
     """
     coordinator_address = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS"
@@ -92,9 +91,9 @@ def data_process_mesh(
     """(data, tile) mesh with host-contiguous data-shards.
 
     ``jax.devices()`` orders devices by process, so a row-major reshape keeps
-    each host's chips adjacent along "data": the gradient ``pmean`` forms a
-    ring whose intra-host hops ride ICI and which crosses DCN once per host
-    boundary, not once per chip.
+    each host's devices adjacent along "data": the gradient ``pmean`` forms
+    a ring whose intra-host hops stay on the host's interconnect and which
+    crosses between hosts once per host boundary, not once per device.
     """
     from . import sharding
 

@@ -1,16 +1,18 @@
 """Multi-chip distribution: camera data-parallelism + pixel-band sharding.
 
 The reference is strictly single-device (SURVEY §2.4: no DP/TP/PP, no
-collectives of any kind) — this layer is new TPU-first design:
+collectives of any kind) — this layer is new design.  The mesh is a plain
+(data, tile) reshape of `jax.devices()`; every card of a host reaches every
+other at the same rate (NVLink), so the layout follows the algorithm alone:
 
   * mesh axis "data": each device trains on a DIFFERENT camera view per step.
-    Gaussian parameters are replicated; per-view gradients are `pmean`'d over
-    ICI — the 3DGS analogue of data parallelism.  With the reference's random
+    Gaussian parameters are replicated; per-view gradients are `pmean`'d
+    across the mesh — the 3DGS analogue of data parallelism.  With the reference's random
     camera sampling this is exact gradient accumulation over a batch of views
     (the single-view reference is the batch=1 special case).
   * mesh axis "tile": for very large renders, ONE camera's pixel-tile grid is
     split into horizontal bands, one band per device.  Each device rasterizes
-    only its band; the bands are then `all_gather`'d over ICI and the loss is
+    only its band; the bands are then `all_gather`'d and the loss is
     computed on the FULL image on every tile device, so SSIM windows crossing
     band seams see real neighbour rows, not conv zero-padding — the sharded
     loss and gradients match the single-device step exactly (see
@@ -26,7 +28,7 @@ the norm of the averaged gradient (norm-of-mean < mean-of-norms would
 under-densify at the reference's grad_threshold).
 
 Built on `shard_map` so the Pallas rasterizer runs rank-identical per shard
-(no vmap over pallas_call), with XLA collectives over ICI.
+(no vmap over pallas_call), with XLA collectives between the devices.
 """
 
 from __future__ import annotations
@@ -82,7 +84,7 @@ def make_dp_train_step(
     `views` is the full stacked view dict (replicated — every device holds all
     camera tensors and targets); `view_idx` is an int32 [data_parallel] array
     sharded over "data" selecting each device's camera for this step.  Params
-    are replicated, per-view gradients pmean'd over ICI, and the Adam update
+    are replicated, per-view gradients pmean'd, and the Adam update
     is replicated (identical on all devices after the collective).
 
     With `batched_views=True` the step instead takes (state, view_batch) where
@@ -90,7 +92,8 @@ def make_dp_train_step(
     over "data" — each device holds ONLY its own camera's tensors.  This is
     the multi-host form (parallel/multihost.py): each process materializes
     just its addressable shard of the batch, so camera targets never cross
-    DCN (only gradients do).  Semantics are identical to the replicated form.
+    hosts (only gradients do).  Semantics are identical to the replicated
+    form.
 
     Returns (new_state, metrics, images) where images is the [data_parallel,
     H, W, 3] batch of rendered full views (for previews).
@@ -183,10 +186,9 @@ def make_dp_train_step(
         # backward, BEFORE the projection backward that produces
         # xyz/scale/rotation grads — separate collectives give XLA's
         # latency-hiding scheduler the freedom to overlap the early ones
-        # with the remaining backward compute.  At 3DGS scale the win is
-        # bounded: ~24 MB of grads over ICI is ~0.25 ms against a ~160 ms
-        # step (docs/DESIGN.md "Gradient collectives"), so correctness of
-        # the schedule, not bandwidth, is what matters here.
+        # with the remaining backward compute.  At 3DGS scale the gradients
+        # are tens of MB per step, so correctness of the schedule, not
+        # bandwidth, is what matters here.
         grads = jax.tree.map(lambda g: jax.lax.pmean(g, "data"), grads_view)
         loss = jax.lax.pmean(loss, "data")
         parts = jax.lax.pmean(parts, "data")

@@ -12,7 +12,7 @@ Reference behaviour (GaussianTrainer.swift:766-908, classify/map kernels at
   split children: scales -= log(1.6); xyz +- mean(exp(src_scale)) * 0.1 * N(0,1)
   clone copy:     xyz += 0.01 * N(0,1)
 
-TPU redesign: the reference reallocates arrays and re-creates the optimizer on
+Static-shape redesign: the reference reallocates arrays and re-creates the optimizer on
 the host with several `.item()` syncs; here everything happens in fixed
 [capacity]-shaped buffers via classify -> exclusive-cumsum offsets ->
 scatter-built gather map -> single gather, so the whole operation jits and the
@@ -103,15 +103,16 @@ def split_and_prune(
         # alone).  No reference counterpart (single-scene iOS app never
         # evaluates novel views).  camera_centers are centering-shifted.
         assert camera_centers is not None
-        # |x - c|^2 = |x|^2 + |c|^2 - 2 x.c in matmul form: one [N, V] MXU
+        # |x - c|^2 = |x|^2 + |c|^2 - 2 x.c in matmul form: one [N, V]
         # product instead of a [N, V, 3] broadcast temporary (~400 MB at the
         # 1M-gaussian capacity if XLA declines to fuse the rank-3 form).
-        # Only the SIGN of d2 - r^2 matters; the cancellation error of the
-        # expanded form (~1e-3 relative at these magnitudes) is far below
-        # the prune radius' own arbitrariness.
+        # Only the SIGN of d2 - r^2 matters; the product runs in full
+        # float32 (not TF32), so the cancellation error of the expanded form
+        # stays far below the prune radius' own arbitrariness.
         xx = jnp.sum(params.xyz * params.xyz, axis=1, keepdims=True)  # [N,1]
         cc = jnp.sum(camera_centers * camera_centers, axis=1)  # [V]
-        xc = params.xyz @ camera_centers.T  # [N, V]
+        xc = jnp.matmul(params.xyz, camera_centers.T,
+                        precision=jax.lax.Precision.HIGHEST)  # [N, V]
         d2 = xx + cc[None, :] - 2.0 * xc
         near = jnp.min(d2, axis=1) < prune_near_cameras ** 2
         prune = jnp.logical_or(prune, jnp.logical_and(active, near))

@@ -318,7 +318,7 @@ class Trainer:
         batched_views: use the multi-host-safe batched step form — each data
         shard's camera tensors are assembled per step from a HOST-LOCAL view
         store (parallel/multihost.py) instead of a replicated all-views stack,
-        so camera pixels never cross DCN.  Defaults to on under
+        so camera pixels never cross hosts.  Defaults to on under
         jax.process_count() > 1, off otherwise; the two forms are exactly
         equivalent (tests/test_multihost.py densify-equivalence)."""
         self.cfg = config
@@ -536,7 +536,7 @@ class Trainer:
             # demand of the logged step (ops/binning.py:161-164), so when the
             # logged step itself overflowed, grow to a snug 1.3x margin over
             # demand instead of blindly doubling (a 0.1% overflow should not
-            # buy a 2x budget that taxes every later staging pass).  A 1.25x
+            # buy a 2x budget that taxes every later binning pass).  A 1.25x
             # minimum growth factor keeps the recompile count geometric, and
             # when the overflow happened only on a NON-logged step (logged
             # overflow_pairs == 0, demand unknown) fall back to doubling.
@@ -759,8 +759,16 @@ class Trainer:
         PILImage.fromarray(pair).save(d / f"iter_{iteration:06d}_v{view_idx}.png")
 
     def save_loss_curve(self, path=None):
-        """Loss/PSNR chart (LossChartView counterpart)."""
-        import matplotlib
+        """Loss/PSNR chart (LossChartView counterpart).  Skipped, with a
+        note, where matplotlib is not installed."""
+        import sys
+
+        try:
+            import matplotlib
+        except ImportError:
+            print("NOTE: matplotlib not installed; no loss_curve.png",
+                  file=sys.stderr, flush=True)
+            return
 
         matplotlib.use("Agg")
         import matplotlib.pyplot as plt

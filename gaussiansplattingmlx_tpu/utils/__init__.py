@@ -1,1 +1,1 @@
-from . import camera, platform, point_cloud, profiler, sh, transforms  # noqa: F401
+from . import camera, point_cloud, profiler, sh, transforms  # noqa: F401

@@ -2,8 +2,8 @@
 
 Counterpart of IntervalProfiler (Trainer/GaussianTrainer.swift:122-241):
 nested `measure("name")` scopes with self/total/count accounting and a top-K
-report.  On TPU, sections that should attribute device time must pass
-`sync=True` so the scope blocks on the returned arrays (the analogue of the
+report.  On an accelerator, sections that should attribute device time must
+pass `sync=True` so the scope blocks on the returned arrays (the analogue of the
 reference forcing `eval` inside measured sections,
 GaussianRenderer.swift:157-171).  For kernel-level analysis use `trace()`
 which wraps `jax.profiler.trace` (view in XProf/Perfetto).
@@ -79,7 +79,7 @@ class IntervalProfiler:
 
 @contextlib.contextmanager
 def trace(log_dir: str = "/tmp/jax-trace"):
-    """Capture a device trace viewable in XProf/Perfetto — the TPU analogue
+    """Capture a device trace viewable in XProf/Perfetto — the analogue
     of the reference's Metal GPU capture (TrainView.swift:109-117)."""
     with jax.profiler.trace(log_dir):
         yield

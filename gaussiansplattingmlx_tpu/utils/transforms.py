@@ -8,6 +8,7 @@ and unnormalized in parameter space.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 
@@ -66,9 +67,11 @@ def build_cov3d(scales, quat, eps: float = 1e-8):
     """Sigma = L @ L^T from activated scales and raw quaternion.
 
     Matches buildCov3dFromScaleRotation (shared.slang:118-168).
-    Returns the full symmetric [..., 3, 3]."""
+    Returns the full symmetric [..., 3, 3].  Full float32 (a GPU runs
+    default-precision f32 products in TF32, ~3 decimal digits)."""
     L = build_scaling_rotation(scales, quat, eps)
-    return L @ jnp.swapaxes(L, -1, -2)
+    return jnp.matmul(L, jnp.swapaxes(L, -1, -2),
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def strip_lowerdiag(cov):

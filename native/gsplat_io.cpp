@@ -1,6 +1,6 @@
 // Native data-loading core: COLMAP binary parsers + Gaussian PLY codec.
 //
-// TPU-native counterpart of the reference's native Swift loaders
+// Host-side counterpart of the reference's native Swift loaders
 // (Data/ColmapDataLoader.swift:188-434, Data/PlyWriter.swift:20-266).  The
 // Python fallbacks in gaussiansplattingmlx_tpu/data/ are semantically
 // identical; this library exists because COLMAP points3D/images parsing is a

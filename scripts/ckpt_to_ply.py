@@ -8,7 +8,8 @@ reference Model/PlyWriter.swift) — speaks PLY.  This bridges the gap:
     python scripts/ckpt_to_ply.py outputs/flagship_vendor            # newest
     python scripts/ckpt_to_ply.py outputs/run/ckpt_6000.npz -o m.ply
 
-Runs on CPU (no TPU contention with a live campaign).
+Runs on the CPU, so it never competes with a live training run for the
+card.
 """
 
 import argparse
@@ -34,10 +35,7 @@ def main() -> None:
                     "the checkpoint)")
     args = ap.parse_args()
 
-    os.environ.setdefault("GSPLAT_PLATFORM", "cpu")
-    from gaussiansplattingmlx_tpu.utils.platform import apply_platform_env
-
-    apply_platform_env()
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import jax
     from gaussiansplattingmlx_tpu.data import ply
     from gaussiansplattingmlx_tpu.train import checkpoint

@@ -5,16 +5,18 @@ Two modes:
   launcher (default): spawns ``--num-processes`` local worker processes that
     form a real JAX distributed cluster over loopback (the same
     ``jax.distributed.initialize`` + ``make_array_from_process_local_data``
-    code path a TPU pod uses over DCN; only the transport differs).  Each
-    worker gets ``--devices-per-process`` virtual CPU devices, loads ONLY its
-    slice of the camera views, and runs batched data-parallel train steps.
+    code path a multi-host cluster uses; only the transport differs).  Each
+    worker gets ``--devices-per-process`` virtual CPU devices (or, with
+    ``--gpu``, that many cards of its own through CUDA_VISIBLE_DEVICES, so
+    no two processes open one card), loads ONLY its slice of the camera
+    views, and runs batched data-parallel train steps.
 
         python scripts/launch_multihost.py --num-processes 2 \
             --devices-per-process 2 --iters 6
 
-  worker (--worker): one process of the cluster.  On a real pod, run this
-    directly on every host with JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
-    JAX_PROCESS_ID exported (or rely on TPU auto-discovery and pass nothing).
+  worker (--worker): one process of the cluster.  On a real cluster, run
+    this directly on every host with JAX_COORDINATOR_ADDRESS /
+    JAX_NUM_PROCESSES / JAX_PROCESS_ID exported.
 
 The reference has no distribution layer (SURVEY §2.4); this is new design.
 """
@@ -209,25 +211,39 @@ def worker_trainer(args) -> None:
         print("TRAINER_DONE", flush=True)
 
 
+def worker_env(args, pid: int) -> dict:
+    """Environment of worker `pid`: the cluster coordinates, plus its own
+    devices — virtual CPU devices, or with --gpu a disjoint range of cards
+    (a JAX process reserves most of a card's memory, so processes must never
+    share one)."""
+    env = dict(
+        os.environ,
+        JAX_COORDINATOR_ADDRESS=f"localhost:{args.port}",
+        JAX_NUM_PROCESSES=str(args.num_processes),
+        JAX_PROCESS_ID=str(pid),
+    )
+    if args.gpu:
+        first = pid * args.devices_per_process
+        env["CUDA_VISIBLE_DEVICES"] = ",".join(
+            str(d) for d in range(first, first + args.devices_per_process)
+        )
+    else:
+        env["JAX_PLATFORMS"] = "cpu"
+        env["XLA_FLAGS"] = (
+            f"--xla_force_host_platform_device_count={args.devices_per_process}"
+        )
+    return env
+
+
 def launcher(args) -> None:
-    port = args.port
     procs = []
     for pid in range(args.num_processes):
-        env = dict(
-            os.environ,
-            JAX_COORDINATOR_ADDRESS=f"localhost:{port}",
-            JAX_NUM_PROCESSES=str(args.num_processes),
-            JAX_PROCESS_ID=str(pid),
-            JAX_PLATFORMS="cpu",
-            GSPLAT_PLATFORM="cpu",
-            XLA_FLAGS=(
-                f"--xla_force_host_platform_device_count="
-                f"{args.devices_per_process}"
-            ),
-        )
-        cmd = [sys.executable, __file__, "--worker", "--cpu",
+        env = worker_env(args, pid)
+        cmd = [sys.executable, __file__, "--worker",
                "--iters", str(args.iters), "--size", str(args.size),
                "--views", str(args.views), "--points", str(args.points)]
+        if not args.gpu:
+            cmd.append("--cpu")
         if args.trainer:
             cmd += ["--trainer", "--root", args.root, "--out", args.out,
                     "--resize-factor", str(args.resize_factor),
@@ -245,7 +261,10 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--worker", action="store_true")
     ap.add_argument("--cpu", action="store_true",
-                    help="force the CPU platform (local clusters)")
+                    help="worker: force the CPU platform (local clusters)")
+    ap.add_argument("--gpu", action="store_true",
+                    help="launcher: give each worker its own GPUs instead "
+                         "of virtual CPU devices")
     ap.add_argument("--num-processes", type=int, default=2)
     ap.add_argument("--devices-per-process", type=int, default=2)
     ap.add_argument("--iters", type=int, default=4)
@@ -257,7 +276,7 @@ def main() -> None:
     # --trainer mode: full Trainer (densify/growth/ckpt) on a COLMAP scene.
     ap.add_argument("--trainer", action="store_true")
     ap.add_argument("--root", default="tests/fixtures/vendor_scene")
-    ap.add_argument("--out", default="/tmp/multihost_trainer")
+    ap.add_argument("--out", default="outputs/multihost_trainer")
     ap.add_argument("--resize-factor", type=float, default=0.25)
     ap.add_argument("--ckpt-interval", type=int, default=0)
     ap.add_argument("--resume", default=None)

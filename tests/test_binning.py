@@ -156,36 +156,6 @@ def test_exactness_at_scale_random(rng):
     np.testing.assert_array_equal(got_idx, [p[2] for p in expected])
 
 
-def test_merge_ranks_matches_searchsorted(rng):
-    """Pallas blocked-merge (interpret mode) == searchsorted semantics on a
-    strictly-increasing cumsum, including window-boundary cases."""
-    from gaussiansplattingmlx_tpu.ops import merge_pallas
-
-    MP = 2 * merge_pallas.BLOCK
-    # strictly increasing, values straddling 0, block edges, and > MP
-    fp = rng.integers(1, 7, size=400).astype(np.int64)
-    cum = np.cumsum(fp)
-    got = np.asarray(
-        merge_pallas.merge_ranks(jnp.asarray(cum, jnp.int32), MP, interpret=True)
-    )
-    want = np.searchsorted(cum, np.arange(MP), side="right")
-    np.testing.assert_array_equal(got, want)
-
-
-def test_merge_ranks_dense_boundaries(rng):
-    from gaussiansplattingmlx_tpu.ops import merge_pallas
-
-    MP = merge_pallas.BLOCK
-    # every footprint = 1: rank advances every slot; owners exactly fill
-    # the window bound (worst case for K)
-    cum = np.arange(1, MP + 200)
-    got = np.asarray(
-        merge_pallas.merge_ranks(jnp.asarray(cum, jnp.int32), MP, interpret=True)
-    )
-    want = np.searchsorted(cum, np.arange(MP), side="right")
-    np.testing.assert_array_equal(got, want)
-
-
 def test_all_culled_scene(rng):
     """Every gaussian culled (radius 0): zero pairs, all-sentinel tiles."""
     n = 10
@@ -250,42 +220,3 @@ def test_binning_survives_pathological_pair_total():
     starts = np.asarray(out.tile_start)
     assert (np.diff(starts) >= 0).all()
     assert int(np.asarray(out.tile_count).sum()) == max_pairs
-
-
-def test_merge_gather_matches_rank_gather(rng):
-    """Fused merge+gather (interpret mode) == table[:, rank] bit-for-bit,
-    including the zero-column selection for slots past the last real pair
-    (rank == n) and window-boundary cases."""
-    from gaussiansplattingmlx_tpu.ops import merge_pallas
-
-    MP = 2 * merge_pallas.BLOCK
-    fp = rng.integers(1, 7, size=400).astype(np.int64)
-    cum = np.cumsum(fp)  # total ~1200 << MP: many slots land past the end
-    n = len(cum)
-    tbl = rng.normal(size=(merge_pallas.TBL_ROWS, n)).astype(np.float32)
-    # integer-valued rows as the real table carries (exact f32 values)
-    tbl[0] = rng.integers(0, 50, size=n)
-    tbl[3] = np.maximum(cum - fp, 0)
-    got = np.asarray(merge_pallas.merge_gather(
-        jnp.asarray(cum, jnp.int32), jnp.asarray(tbl), MP, interpret=True
-    ))
-    rank = np.searchsorted(cum, np.arange(MP), side="right")
-    tbl_pad = np.concatenate([tbl, np.zeros((tbl.shape[0], 1), np.float32)], axis=1)
-    want = tbl_pad[:, rank]
-    np.testing.assert_array_equal(got, want)
-
-
-def test_merge_gather_dense_boundaries(rng):
-    """Every footprint = 1: the rank advances each slot and owners exactly
-    fill the K-window bound (worst case for the one-hot local index)."""
-    from gaussiansplattingmlx_tpu.ops import merge_pallas
-
-    MP = merge_pallas.BLOCK
-    cum = np.arange(1, MP + 200)
-    n = len(cum)
-    tbl = rng.normal(size=(merge_pallas.TBL_ROWS, n)).astype(np.float32)
-    got = np.asarray(merge_pallas.merge_gather(
-        jnp.asarray(cum, jnp.int32), jnp.asarray(tbl), MP, interpret=True
-    ))
-    want = tbl[:, np.searchsorted(cum, np.arange(MP), side="right")]
-    np.testing.assert_array_equal(got, want)

@@ -38,7 +38,6 @@ def run_cli(script, *args, env_extra=None):
 
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["GSPLAT_PLATFORM"] = "cpu"
     return subprocess.run(
         [sys.executable, str(REPO / script), *args],
         capture_output=True, text=True, env=env, timeout=600,

@@ -105,10 +105,34 @@ def test_sample_local_view_ids_stay_local():
     assert set(int(d) for d in draws) <= {2, 5, 7}
 
 
+@pytest.mark.parametrize("gpu", [False, True], ids=["cpu", "gpu"])
+def test_launcher_gives_each_worker_its_own_devices(gpu, monkeypatch):
+    """Worker environments: virtual CPU devices, or with --gpu disjoint card
+    ranges, so no two JAX processes open one card."""
+    monkeypatch.delenv("JAX_PLATFORMS", raising=False)
+    monkeypatch.syspath_prepend(str(REPO / "scripts"))
+    import launch_multihost
+
+    args = launch_multihost.argparse.Namespace(
+        port=29999, num_processes=3, devices_per_process=2, gpu=gpu
+    )
+    envs = [launch_multihost.worker_env(args, pid) for pid in range(3)]
+    assert [e["JAX_PROCESS_ID"] for e in envs] == ["0", "1", "2"]
+    assert all(e["JAX_COORDINATOR_ADDRESS"] == "localhost:29999" for e in envs)
+    if gpu:
+        cards = [e["CUDA_VISIBLE_DEVICES"].split(",") for e in envs]
+        assert cards == [["0", "1"], ["2", "3"], ["4", "5"]]
+        assert all("JAX_PLATFORMS" not in e for e in envs)
+    else:
+        assert all(e["JAX_PLATFORMS"] == "cpu" for e in envs)
+        assert all("device_count=2" in e["XLA_FLAGS"] for e in envs)
+
+
 @pytest.mark.slow
 def test_launch_multihost_smoke():
     """Real 2-process x 2-device distributed cluster over loopback: the
-    jax.distributed + make_array_from_process_local_data path a pod uses."""
+    jax.distributed + make_array_from_process_local_data path a multi-host
+    cluster uses."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
     proc = subprocess.run(
@@ -261,7 +285,7 @@ def test_train_cli_multihost_two_processes(tmp_path):
         env.update(
             JAX_COORDINATOR_ADDRESS="localhost:29961",
             JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(pid),
-            JAX_PLATFORMS="cpu", GSPLAT_PLATFORM="cpu",
+            JAX_PLATFORMS="cpu",
             XLA_FLAGS="--xla_force_host_platform_device_count=1",
         )
         procs.append(subprocess.Popen(

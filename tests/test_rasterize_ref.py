@@ -172,3 +172,24 @@ def test_white_background():
     np.testing.assert_allclose(np.asarray(out), 0.75, atol=1e-7)
     out2 = rasterize_ref.apply_background(color, alpha, False)
     np.testing.assert_allclose(np.asarray(out2), 0.0)
+
+
+def test_reference_ignores_default_matmul_precision(rng):
+    """The oracle asks for full float32 itself: a lower default precision
+    (TF32 on a GPU) must not change its output."""
+    packed, b, dims = make_scene(rng)
+    W, H, tw, th = dims
+
+    def run():
+        return rasterize_ref.rasterize_reference(
+            packed, b.sorted_gauss_idx, b.sorted_tile_id, W, H, tw, th
+        )
+
+    want = run()
+    with jax.default_matmul_precision("float32"):
+        got = run()
+    with jax.default_matmul_precision("bfloat16"):
+        low = run()
+    for a, c, d in zip(got, want, low):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(c))
+        np.testing.assert_array_equal(np.asarray(d), np.asarray(c))

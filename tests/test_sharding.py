@@ -297,10 +297,10 @@ def test_data_x_tile_mesh(scene):
     )
 
 
-def test_dp_step_fused_staging_interpret(scene):
-    """Fused staging + interpret-mode Pallas kernels UNDER shard_map (the
-    combination mesh-mode TPU training runs): one DP step on a (2, 1) mesh
-    matches the reference-backend step's loss and gradients."""
+def test_dp_step_tile_kernel_interpret(scene):
+    """The tile rasterizer kernel (Pallas interpret mode) UNDER shard_map,
+    the combination mesh-mode GPU training runs: one DP step on a (2, 1)
+    mesh matches the reference-backend step's loss and gradients."""
     pts, cols, cams, images = scene
     data = TrainData(cameras=cams, images=images)
     views = stack_views(data)
@@ -318,8 +318,7 @@ def test_dp_step_fused_staging_interpret(scene):
         )
         return float(m["loss"]), np.asarray(out.params.xyz)
 
-    l_pal, x_pal = run("pallas_interpret",
-                       dataclasses.replace(RASTER, staging="fused"))
+    l_k, x_k = run("triton_interpret", RASTER)
     l_ref, x_ref = run("reference", RASTER)
-    np.testing.assert_allclose(l_pal, l_ref, rtol=1e-5)
-    np.testing.assert_allclose(x_pal, x_ref, rtol=1e-4, atol=1e-7)
+    np.testing.assert_allclose(l_k, l_ref, rtol=1e-5)
+    np.testing.assert_allclose(x_k, x_ref, rtol=1e-4, atol=1e-7)

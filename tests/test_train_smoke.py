@@ -304,7 +304,7 @@ def test_overflow_growth_is_demand_based(scene, capsys):
     """When the LOGGED step overflows, num_pairs + overflow_pairs is the true
     pair demand, so growth lands at a snug ~1.3x margin over demand instead of
     blindly doubling (a 0.1% overflow must not buy a 2x budget that taxes
-    every later staging pass).  The 1.25x minimum keeps recompiles geometric."""
+    every later binning pass).  The 1.25x minimum keeps recompiles geometric."""
     pts, cols, cams, images = scene
     data = TrainData(cameras=cams, images=images)
     pc = PointCloud(coords=pts, colors=cols * 255.0)
@@ -651,14 +651,11 @@ def test_render_many_matches_per_view(scene):
     means, shs, opacity, scales, rots = gaussians.activations(params)
     ts = [c.tensors() for c in cams[:3]]
     stack = lambda k: jnp.stack([jnp.asarray(t[k]) for t in ts])
-    # inference=False: bit-exact vs the per-view training forward below
-    # (the default inference fast path regroups fp at ULP level; its own
-    # parity is covered by tests/test_staging.py).
     colors, depths, npairs, ovfl = render_many(
         means, shs, opacity, scales, rots,
         stack("view"), stack("proj"), stack("camera_center"),
         stack("fov_x"), stack("fov_y"), stack("focal_x"), stack("focal_y"),
-        W, H, 0, raster_cfg=RASTER, backend="reference", inference=False,
+        W, H, 0, raster_cfg=RASTER, backend="reference",
     )
     assert float(jnp.sum(ovfl)) == 0
     # XLA compiles the lax.map body separately from the eager per-view

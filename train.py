@@ -40,7 +40,8 @@ def parse_args(argv=None):
     p.add_argument("--white-background", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--backend", default=None,
-                   help="rasterizer backend: pallas | reference | auto")
+                   help="rasterizer backend: auto (the compiled tile kernel "
+                        "on a GPU) | reference | triton_interpret")
     p.add_argument("--config", default=None, help="TrainConfig JSON file")
     p.add_argument("--resume", default=None, help="checkpoint .npz to resume")
     p.add_argument("--max-gaussians", type=int, default=1_000_000)
@@ -49,7 +50,7 @@ def parse_args(argv=None):
                    help="skip point-cloud centering")
     p.add_argument("--data-parallel", type=int, default=None,
                    help="mesh 'data' axis size: one camera view per device "
-                        "per step, gradients pmean'd over ICI (0 = all "
+                        "per step, gradients all-reduced (0 = all "
                         "remaining devices)")
     p.add_argument("--tile-parallel", type=int, default=None,
                    help="mesh 'tile' axis size: split each camera's pixel "
@@ -68,18 +69,19 @@ def parse_args(argv=None):
     p.add_argument("--multihost", action="store_true",
                    help="join a jax.distributed cluster (reads "
                         "JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / "
-                        "JAX_PROCESS_ID, or TPU-pod auto-discovery); each "
-                        "process keeps a host-local view store and only "
-                        "gradients cross DCN")
+                        "JAX_PROCESS_ID); each process keeps a host-local "
+                        "view store and only gradients cross hosts")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
 
-    from gaussiansplattingmlx_tpu.utils.platform import apply_platform_env
+    from gaussiansplattingmlx_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
 
-    apply_platform_env()
+    enable_compile_cache()
 
     if args.multihost:
         from gaussiansplattingmlx_tpu.parallel import multihost
@@ -203,6 +205,10 @@ def main(argv=None):
                 writer.writeheader()
         writer.writerow(m)
         csv_file.flush()
+        # One JSON line per log line: the heartbeat that
+        # scripts/supervise_train.py watches.
+        with open(out_dir / "metrics.jsonl", "a") as f:
+            f.write(json.dumps(m) + "\n")
         print(
             f"iter {m['iteration']:6d}  loss {m['loss']:.5f}  "
             f"psnr {m['psnr']:.2f}  n {m['num_active']}  "
@@ -217,6 +223,7 @@ def main(argv=None):
     if is_writer:
         print("final:", json.dumps(final))
         csv_file.close()
+    return trainer
 
 
 if __name__ == "__main__":
